@@ -3,7 +3,7 @@
 The reference's implied budget: one replan (impc_iter=2 QP solves) per
 robot per h = 100 ms on CPU (base_config.json:3; the ROS deployment runs
 the optimizer timer at h, control_node.cpp:195-197). This measures the
-full control step (CBF assembly + 2 fused-ADMM solves) for whole TEAMS in
+full control step (CBF assembly + 2 batched solves) for whole TEAMS in
 lockstep and reports p50/p95/p99 wall latency.
 
 Usage: python benchmarks/latency.py [team_size] [num_teams] [mode]
@@ -53,8 +53,8 @@ def main() -> None:
                               jnp.asarray(mpc.v_max))
         ctrl = ConnectivityIMPCCBF(op, cbf, IMPCParams(), A - 1)
     if mode == "fov":
-        # round-5 fov production solver (mirrors bench.py): f32 Mehrotra
-        # IPM — usable rate 0.99 vs the fused ADMM's 0.69
+        # fov production solver (mirrors bench.py): f32 Mehrotra IPM —
+        # usable rate 0.99 vs the structured ADMM's 0.69
         from mpc_cbf_tpu.ops.qp.ipm import IPM_F32_ENTRY
         simpc = StructuredIMPC(ctrl, IPM_F32_ENTRY)
     else:

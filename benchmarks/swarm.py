@@ -2,9 +2,9 @@
 "1000+-scenario batched swarm (32 agents) across hosts").
 
 Runs S independent 32-agent scenarios in lockstep: every (scenario,
-agent) pair is one lane of the fused Pallas ADMM batch — S*32 MPC-CBF
-QPs per IMPC iteration, 2 iterations per control step. On multiple
-hosts, shard the scenario axis with parallel.distributed.
+agent) pair is one lane of the batched solve — S*32 MPC-CBF QPs per
+IMPC iteration, 2 iterations per control step. On several devices or
+processes, shard the scenario axis with parallel.distributed.
 
 Usage: python benchmarks/swarm.py [scenarios] [agents] [steps] [mode]
   mode: "connectivity" (default) or "fov" (flagship families: 4 CBF rows
@@ -58,12 +58,12 @@ def main() -> None:
     # at entry — measured success 0.0 with an all-on mask), so fov mode
     # range-masks neighbors to the sensing radius below.
     #
-    # Solver: the f32 Mehrotra IPM (round-5 production path, mirrors
+    # Solver: the f32 Mehrotra IPM (the production path, mirrors
     # bench.py). Besides the usable-rate advantage, the IPM carries NO
     # per-lane [m_d, m_d] tensor — at m_d = 372 the ADMM's Woodbury
     # blocks are 3 x 18.9 GB at full batch (forcing lane-chunking) while
     # the IPM's largest per-lane tensor is [m_d, nz] — so swarm scale
-    # fits HBM without chunking. SWARM_SOLVER=admm reverts to the deep-
+    # fits device memory without chunking. SWARM_SOLVER=admm reverts to the deep-
     # budget ADMM (600 iters, measured 1.00 usable on the masked ring).
     if os.environ.get("SWARM_SOLVER", "ipm") != "admm":
         from mpc_cbf_tpu.ops.qp.ipm import IPM_F32_ENTRY
@@ -125,6 +125,7 @@ def main() -> None:
     dt = (time.perf_counter() - t0) / steps
 
     qps = S * A * 2  # QPs per control step (impc_iter = 2)
+    dev = jax.devices()[0]
     print(json.dumps({
         "metric": "swarm_qp_solves_per_s",
         "scenarios": S, "agents": A,
@@ -133,6 +134,9 @@ def main() -> None:
         "solves_per_s": round(qps / dt, 1),
         "solver_success_rate": round(
             float(jnp.mean(jnp.stack(rates).astype(jnp.float32))), 4),
+        "finite": bool(jnp.all(jnp.isfinite(pos)) & jnp.all(jnp.isfinite(vel))),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }))
 
 

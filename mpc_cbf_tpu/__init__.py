@@ -1,12 +1,12 @@
-"""mpc_cbf_tpu — a TPU-native multi-agent MPC-CBF framework.
+"""mpc_cbf_tpu — a batched multi-agent MPC-CBF framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
-C++ stack ``ywang760/mpc-cbf`` (Eigen + GiNaC symbolics + CPLEX), redesigned
-for TPU hardware:
+A from-scratch JAX/XLA rebuild of the capabilities of the reference C++
+stack ``ywang760/mpc-cbf`` (Eigen + GiNaC symbolics + CPLEX), redesigned
+to solve thousands of robots' QPs in lockstep on one accelerator:
 
 - GiNaC symbolic Lie derivatives  -> JAX autodiff CBF engine (:mod:`.ops.cbf`)
-- CPLEX QP solver                 -> batched ADMM solver, jnp + Pallas
-  (:mod:`.ops.qp`)
+- CPLEX QP solver                 -> batched interior-point and ADMM
+  solvers (:mod:`.ops.qp`)
 - Eigen linear algebra            -> precomputed static operators
   (:mod:`.ops.bernstein`, :mod:`.models.double_integrator`)
 - sequential per-robot loops      -> vmapped agent axis
@@ -19,7 +19,7 @@ Layer map (mirrors reference layers L0-L7, see SURVEY.md §1):
 Layer  Reference                       Here
 =====  ==============================  =============================
 L0     math/, common/                  ops/geometry.py, utils/
-L1     qpcpp + CPLEX                   ops/qp/ (batched ADMM)
+L1     qpcpp + CPLEX                   ops/qp/ (batched IPM, ADMM)
 L2     cbf/detail, splines, model      ops/cbf.py, ops/bernstein.py,
                                        models/double_integrator.py
 L3/L4  *QPOperations/*QPGenerator      controllers/*_assembly
@@ -35,14 +35,14 @@ import os as _os
 
 import jax as _jax
 
-# f32 matmuls at JAX's 'default' precision run as multi-pass bf16 on TPU
-# (and this image's CPU GEMM matches that: rel err ~2.5e-3) — enough to
-# corrupt QP cost vectors by ~0.3% and stall the ADMM solver, while the
-# *unbatched* GEMV path stays full-f32, so the bug only appears under
+# At JAX's 'default' precision an f32 matmul may run in reduced precision:
+# on the GPU as TF32 (about three decimal digits), enough to corrupt QP
+# cost vectors by ~0.3% and stall the solvers. Batched products take that
+# path while unbatched GEMVs may not, so the error appears only under
 # vmap. A control stack needs real f32 linear algebra, so the package
-# defaults matmul precision to 'highest' (float32 accumulation). The
-# solver hot loops additionally pin their own precision locally, so they
-# stay correct even if an embedding application overrides this global.
+# defaults matmul precision to 'highest' (full f32). The solvers also pin
+# their own precision locally, so they stay correct even if an embedding
+# application overrides this global.
 # Override with MPC_CBF_TPU_MATMUL_PRECISION=default|high|highest.
 _jax.config.update(
     "jax_default_matmul_precision",

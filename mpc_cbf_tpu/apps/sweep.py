@@ -1,4 +1,4 @@
-"""Batched scenario sweep — the TPU-native replacement for ScaleScript.sh.
+"""Batched scenario sweep — the batched replacement for ScaleScript.sh.
 
 Where the reference launches independent simulator processes in a bash loop
 (``experiments/bash/ScaleScript.sh:6-35``: num_robots 2-10 x FOV
@@ -34,12 +34,14 @@ import numpy as np
 
 
 def run_cell(cfg, controller, R, seeds, steps, solver_iters, start_noise=0.05,
-             fov=None, slack_decay=None, radius=4.0):
+             fov=None, slack_decay=None, radius=4.0, mesh=None, return_result=False):
     """One grid cell: (controller, R, fov, slack_decay) x seeds lanes.
 
     radius: circle radius for the rotate instance. The reference uses a
     FIXED radius 4 for every team size
-    (``experiments/python/instances/generate_fov_instance.py:89``)."""
+    (``experiments/python/instances/generate_fov_instance.py:89``).
+    mesh: device mesh the seeds are sharded over (default: every device
+    on the scenario axis). return_result: also return the SimResult."""
     import jax
     import jax.numpy as jnp
 
@@ -69,8 +71,8 @@ def run_cell(cfg, controller, R, seeds, steps, solver_iters, start_noise=0.05,
                  vel=jnp.zeros((seeds, R, 3), jnp.float32))
     goals = jnp.asarray(np.broadcast_to(sf, (seeds, R, 3)).copy(), jnp.float32)
 
-    n_dev = len(jax.devices())
-    mesh = make_mesh(scenario=n_dev)
+    if mesh is None:
+        mesh = make_mesh(scenario=len(jax.devices()))
     t0 = time.time()
     res = jax.block_until_ready(sharded_rollout(sim, mesh, init, goals, steps))
     wall = time.time() - t0
@@ -109,7 +111,7 @@ def run_cell(cfg, controller, R, seeds, steps, solver_iters, start_noise=0.05,
                 float(np.asarray(res.success[s], np.float32).mean()),
             "wall_s_batch": round(wall, 2), "steps": steps,
         })
-    return rows
+    return (rows, res) if return_result else rows
 
 
 # backwards-compatible alias (pre-grid name)

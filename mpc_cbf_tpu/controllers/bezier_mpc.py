@@ -9,7 +9,7 @@ Reference parity:
   addEvalBoundConstraints :148-165, addHyperplaneConstraintForPiece :229-…)
 - controller: ``mpc/src/controller/BezierMPC.cpp:36-98``
 
-TPU-first: every matrix that the reference assembles per-solve with Eigen is
+Batch-first: every matrix that the reference assembles per-solve with Eigen is
 either (a) static — precomputed once with float64 numpy and closed over as a
 constant (quadratic cost, equality rows, bound rows, sampling bases), or
 (b) a cheap batched contraction of the current state (linear cost, Voronoi

@@ -610,7 +610,7 @@ class StructuredIMPC:
 
     Wraps a FovIMPCCBF / ConnectivityIMPCCBF and runs the whole agent (x
     scenario) batch through one StructuredQPOperator solve per IMPC
-    iteration: the shared equality/bound blocks become batch-wide MXU
+    iteration: the shared equality/bound blocks become batch-wide
     matmuls instead of per-agent GEMVs (see ops/qp/structured.py).
     """
 
@@ -675,6 +675,50 @@ class StructuredIMPC:
                 q_scale_hint=q_hint, polish_guard_rows=guards,
                 polish_guard_groups=groups)
 
+    def _cost(self, current: State, ref_positions: Array,
+              neighbor_blob: Array, neighbor_mask: Array) -> Array:
+        """Per-lane linear cost q [B, n] (tracking + ranked slack weights)."""
+        ctrl, op = self.ctrl, self.ctrl.op
+        B = ref_positions.shape[0]
+        q_dec = jax.vmap(op.linear_cost)(current.stacked, ref_positions)  # [B, n_dec]
+        q = jnp.zeros((B, ctrl.n), current.pos.dtype).at[:, : op.n_dec].set(q_dec)
+        if ctrl.S:
+            def slack_w(cur_pos, blob, mask):
+                d = jax.vmap(lambda nb: ctrl._neighbor_distance(cur_pos, nb))(blob)
+                d = jnp.where(mask, d, jnp.inf)
+                return _rank_weights(d, ctrl.impc.slack_cost, ctrl.impc.slack_decay_rate)
+            q = q.at[:, op.n_dec:].set(
+                jax.vmap(slack_w)(current.pos, neighbor_blob, neighbor_mask))
+        return q
+
+    def _rows(self, current: State, neighbor_blob: Array, neighbor_mask: Array,
+              pred: Array, active: Array):
+        """Per-lane dynamic rows (A_d [B, m_d, n], lb_d, ub_d)."""
+        ctrl = self.ctrl
+        return jax.vmap(
+            lambda cur_p, cur_v, blob, mask, pr: ctrl.dynamic_rows(
+                State(pos=cur_p, vel=cur_v), blob, mask, pr, active)
+        )(current.pos, current.vel, neighbor_blob, neighbor_mask, pred)
+
+    def _pred0(self, current: State):
+        """IMPC iteration 0: the current state at every CBF horizon step,
+        only step 0 active."""
+        H = self.ctrl.impc.cbf_horizon
+        x_now = current.stacked                                  # [B, 2*dim]
+        pred0 = jnp.broadcast_to(x_now[:, None, :], (x_now.shape[0], H, x_now.shape[-1]))
+        return pred0, jnp.arange(H) == 0
+
+    def iteration0_problem(self, current: State, ref_positions: Array,
+                           neighbor_blob: Array, neighbor_mask: Array):
+        """The structured QP of IMPC iteration 0, as the solvers take it:
+        (q, lb_s, ub_s, A_d, lb_d, ub_d); the shared blocks are
+        ``self.ctrl.static_parts()``."""
+        lb_s, ub_s = jax.vmap(self.ctrl.shared_bounds)(current)
+        pred0, active0 = self._pred0(current)
+        return (self._cost(current, ref_positions, neighbor_blob, neighbor_mask),
+                lb_s, ub_s) + tuple(self._rows(current, neighbor_blob, neighbor_mask,
+                                               pred0, active0))
+
     def optimize_batch(self, current: State, ref_positions: Array,
                        neighbor_blob: Array, neighbor_mask: Array,
                        warm: Optional[Array] = None,
@@ -692,21 +736,9 @@ class StructuredIMPC:
         pos_E = jnp.asarray(op.pw.eval_matrix(list(np.asarray(op.h_samples[:H])), 0), dt)
         vel_E = jnp.asarray(op.pw.eval_matrix(list(np.asarray(op.h_samples[:H])), 1), dt)
 
-        q_dec = jax.vmap(op.linear_cost)(current.stacked, ref_positions)  # [B, n_dec]
-        q = jnp.zeros((B, ctrl.n), dt).at[:, : op.n_dec].set(q_dec)
-        if ctrl.S:
-            def slack_w(cur_pos, blob, mask):
-                d = jax.vmap(lambda nb: ctrl._neighbor_distance(cur_pos, nb))(blob)
-                d = jnp.where(mask, d, jnp.inf)
-                return _rank_weights(d, ctrl.impc.slack_cost, ctrl.impc.slack_decay_rate)
-            q = q.at[:, op.n_dec:].set(
-                jax.vmap(slack_w)(current.pos, neighbor_blob, neighbor_mask))
-
+        q = self._cost(current, ref_positions, neighbor_blob, neighbor_mask)
         lb_s, ub_s = jax.vmap(ctrl.shared_bounds)(current)
-
-        x_now = current.stacked                                  # [B, 2*dim]
-        pred0 = jnp.broadcast_to(x_now[:, None, :], (B, H, x_now.shape[-1]))
-        active0 = jnp.arange(H) == 0
+        pred0, active0 = self._pred0(current)
 
         coeffs = jnp.zeros((B, op.n_dec), dt)
         best = jnp.zeros((B, op.n_dec), dt)
@@ -725,10 +757,8 @@ class StructuredIMPC:
                 vel = (coeffs @ vel_E.T.astype(coeffs.dtype)).reshape(B, H, op.dim)
                 pred = jnp.concatenate([pos, vel], axis=-1)
                 active = jnp.ones(H, bool)
-            A_d, lb_d, ub_d = jax.vmap(
-                lambda cur_p, cur_v, blob, mask, pr: ctrl.dynamic_rows(
-                    State(pos=cur_p, vel=cur_v), blob, mask, pr, active)
-            )(current.pos, current.vel, neighbor_blob, neighbor_mask, pred)
+            A_d, lb_d, ub_d = self._rows(current, neighbor_blob, neighbor_mask,
+                                         pred, active)
             # iterations > 0 enter warm (previous iterate's primal AND
             # duals) and may run the reduced tail budget
             op_solve = self.op_qp if (it == 0 or self.op_qp_tail is None) \

@@ -1,4 +1,4 @@
-"""Deployment layer — TPU-native equivalent of the reference ROS stack
+"""Deployment layer — JAX equivalent of the reference ROS stack
 (``workspace/src``): message bus + virtual-time scheduler + nodes."""
 
 from mpc_cbf_tpu.deploy.runtime import Bus, Scheduler, Node  # noqa: F401

@@ -9,7 +9,7 @@ fire in timestamp order, so a whole multi-node deployment runs
 reproducibly inside one process (and one test), while the per-node
 compute stays jitted JAX.
 
-Design note (TPU-first): nodes keep *no* Python-side hot loops — a timer
+Design note: nodes keep *no* Python-side hot loops — a timer
 callback dispatches one pre-compiled XLA computation; the scheduler is
 pure bookkeeping. Real-robot transports (UDP/ROS2/mavlink bridges) slot
 in by replacing Bus with a networked implementation of the same two

@@ -6,7 +6,7 @@ estimateState/getDistribution) and ``pf_applications.cpp:8-45``
 (processFovUpdate: predict -> FOV negative-information down-weighting ->
 conditional measurement update -> resample -> mean/cov).
 
-TPU-first changes:
+Batch-first changes:
 - filter state is a pytree of arrays; every step vmaps over (agent, target)
   pairs and scans over time,
 - multinomial std::discrete_distribution resampling becomes *systematic*

@@ -4,10 +4,10 @@ Reference parity: ``workspace/lib/model/src/DoubleIntegrator.cpp`` (get_A0
 lines 9-27, get_lambda lines 30-51, applyInput lines 53-63) and
 ``DoubleIntegratorXYYaw.cpp:9-21``.
 
-TPU-first design notes:
+Batch-first design notes:
 - ``A``, ``B``, ``A0``, ``Lambda`` are *static* operators, precomputed with
   numpy at build time and closed over by jitted functions, so the per-step
-  compute is one fused matmul on the MXU rather than the reference's loop of
+  compute is one fused matmul rather than the reference's loop of
   Eigen block writes.
 - ``step`` is batched: state arrays carry arbitrary leading axes.
 """

@@ -9,7 +9,7 @@ All of these are functions of *static* curve hyper-parameters (degree, piece
 duration, sample times), so they are evaluated once in float64 numpy at
 controller build time and baked into the jitted program as constants. The
 runtime cost of "evaluate basis" is therefore zero — only the matmuls
-basis @ control_points remain, which is exactly what the MXU wants.
+basis @ control_points remain.
 
 Decision-variable layout per piece (matches BezierQPOperations.cpp:44-68):
 per piece the variables are grouped by dimension:
@@ -261,7 +261,7 @@ def max_derivative_magnitude(
     (splines/src/curves/Bezier.cpp:79-97).
 
     coeffs: [..., n_dec]. The scan grid is static, so this is one matmul +
-    a norm-reduce — MXU-friendly despite the reference's scalar loop.
+    a norm-reduce, where the reference runs a scalar loop.
     """
     import jax.numpy as jnp
 

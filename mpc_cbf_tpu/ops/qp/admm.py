@@ -4,12 +4,10 @@ Replaces the reference's CPLEX backend (``qpcpp/src/solvers/CPLEX.cpp``).
 Where CPLEX runs one active-set solve on one CPU thread (Threads=1,
 CPLEX.cpp:118), this solver runs *thousands of QPs in lockstep*: every
 operation below is a batched matmul / elementwise op over a leading batch
-axis, which is exactly the shape of work the MXU/VPU wants. The production
-TPU path is the structure-exploiting solver (``structured.py``) whose
-iteration loop runs as one fused Pallas kernel with all state resident in
-VMEM (``pallas_admm.py``); this dense module is the semantics reference,
-the general-QP fallback (arbitrary per-problem P/A), and the CPU test
-path.
+axis. The batch path is the structure-exploiting solver
+(``structured.py``); this dense module is the semantics reference, the
+general-QP fallback (arbitrary per-problem P/A), and the per-agent
+controller path.
 
 Algorithm (OSQP, Stellato et al. 2020), for
     minimize 0.5 z'Pz + q'z  s.t.  lb <= Az <= ub:
@@ -233,8 +231,8 @@ def solve_batch(qp: QPBatch, cfg: ADMMConfig = ADMMConfig(),
     x0_f, y0_f = flat(x0, 1), flat(y0, 1)
 
     # pin full-f32 matmul precision: at 'default' precision the batched
-    # GEMMs here run as multi-pass bf16 (TPU MXU; this image's CPU GEMM
-    # behaves identically), which stalls ADMM around 1e-2 primal residual
+    # GEMMs may run in reduced precision (TF32 on the GPU), which stalls
+    # ADMM around 1e-2 primal residual
     with jax.default_matmul_precision("highest"):
         sol = jax.vmap(lambda P, q, A, lb, ub, x0i, y0i: _solve_one(
             QPBatch(P, q, A, lb, ub), cfg, x0i, y0i))(

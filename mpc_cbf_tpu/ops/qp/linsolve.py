@@ -1,21 +1,12 @@
-"""Batched dense linear solves that run in f64 on TPU.
+"""Batched dense linear solves for the f64 solver paths.
 
-XLA:TPU implements f64 *arithmetic* (software-emulated) but NOT the f64
-LuDecomposition custom call that ``jax.scipy.linalg.lu_factor`` lowers
-to — the backend rejects ``f64[B,n,n]`` LU outright. The certified-
-accuracy polish path (ops/qp/polish.py) needs exactly that solve, so
-this module provides a hand-rolled batched LU with partial pivoting
-built from primitives the TPU does support in f64 (mul/add/div, argmax,
-gather/scatter), sequenced with ``lax.fori_loop``.
+``plu_factor``/``plu_solve`` are the polish's KKT solves (ops/qp/polish.py):
+batched LU with partial pivoting through ``jax.scipy.linalg``, which XLA
+lowers to LAPACK on the CPU and to cuSOLVER on the GPU, in f64 on both.
+``spd_solve`` is the batched SPD solve by Cholesky.
 
-On CPU (tests, oracle comparisons) the LAPACK-backed ``jax.scipy``
-routines are both faster and bit-hardened, so ``plu_factor``/
-``plu_solve`` dispatch on the default backend; ``_plu_factor_jax`` /
-``_plu_solve_jax`` are the portable implementations and are tested
-against LAPACK directly (tests/test_polish.py).
-
-The reference pipeline has no counterpart — its exact solves live in
-CPLEX (``qpcpp/src/solvers/CPLEX.cpp:35-178``); this is TPU plumbing.
+The reference pipeline has no counterpart: its exact solves live in CPLEX
+(``qpcpp/src/solvers/CPLEX.cpp:35-178``).
 """
 
 from __future__ import annotations
@@ -24,121 +15,18 @@ import jax
 import jax.numpy as jnp
 
 
-def _plu_factor_jax(A):
-    """Batched LU with partial pivoting: A [B, n, n] -> (LU, perm).
-
-    LU packs unit-lower L (below the diagonal) and U (on/above); perm is
-    the ROW PERMUTATION as gather indices: ``A[perm]`` is the row order
-    the factorization applies, i.e. L @ U = A[:, perm] lane-wise. (This
-    differs from LAPACK's sequential-swap ``piv`` encoding.)
-    """
-    B, n, _ = A.shape
-    dtype = A.dtype
-    ar = jnp.arange(n)
-    perm0 = jnp.broadcast_to(ar, (B, n)).astype(jnp.int32)
-    tiny = jnp.asarray(jnp.finfo(dtype).tiny * 16, dtype)
-
-    def body(k, carry):
-        A, perm = carry
-        col = jnp.abs(A[:, :, k])
-        col = jnp.where(ar[None, :] < k, -1.0, col)
-        p = jnp.argmax(col, axis=1).astype(jnp.int32)       # [B]
-        # batched row swap k <-> p via a per-lane gather index
-        pk = p[:, None]
-        swap = jnp.where(ar[None, :] == k, pk,
-                         jnp.where(ar[None, :] == pk, k, ar[None, :]))
-        A = jnp.take_along_axis(A, swap[:, :, None], axis=1)
-        perm = jnp.take_along_axis(perm, swap, axis=1)
-        piv = A[:, k, k]
-        piv = jnp.where(jnp.abs(piv) < tiny,
-                        jnp.where(piv < 0, -tiny, tiny), piv)
-        A = A.at[:, k, k].set(piv)  # keep the guarded pivot as U[k,k]
-        below = (ar > k)[None, :]
-        mult = jnp.where(below, A[:, :, k] / piv[:, None], 0.0)  # [B, n]
-        # rank-1 update restricted to columns >= k: columns < k of row k
-        # hold STORED L multipliers and must not leak into lower rows
-        rowk = jnp.where((ar >= k)[None, :], A[:, k, :], 0.0)
-        A = A - mult[:, :, None] * rowk[:, None, :]
-        A = A.at[:, :, k].set(jnp.where(below, mult, A[:, :, k]))
-        return A, perm
-
-    LU, perm = jax.lax.fori_loop(0, n, body, (A, perm0))
-    return LU, perm
-
-
-def _plu_solve_jax(LU, perm, b):
-    """Solve A x = b from ``_plu_factor_jax`` output. b [B, n] -> x [B, n]."""
-    n = LU.shape[-1]
-    ar = jnp.arange(n)
-    x = jnp.take_along_axis(b, perm, axis=1)
-
-    def fwd(k, x):                                           # L y = Pb
-        xk = x[:, k]
-        upd = jnp.where((ar > k)[None, :], LU[:, :, k], 0.0)
-        return x - upd * xk[:, None]
-
-    x = jax.lax.fori_loop(0, n, fwd, x)
-
-    def bwd(i, x):                                           # U x = y
-        k = n - 1 - i
-        xk = x[:, k] / LU[:, k, k]
-        x = x.at[:, k].set(xk)
-        upd = jnp.where((ar < k)[None, :], LU[:, :, k], 0.0)
-        return x - upd * xk[:, None]
-
-    return jax.lax.fori_loop(0, n, bwd, x)
-
-
-def _use_lapack() -> bool:
-    return jax.default_backend() == "cpu"
-
-
-def mixed_lu_factor(A):
-    """Mixed-precision factor: LU the f32 ROUNDING of A (a supported,
-    MXU-fast custom call on TPU) and keep the f64 matrix for residuals.
-
-    Classic mixed-precision iterative refinement (Wilkinson; Higham 2002
-    ch. 12): the f32 factorization is only a preconditioner — each
-    ``mixed_lu_solve`` pass computes the residual against the EXACT f64
-    matrix and corrects, converging to f64 backward error whenever the
-    f32 factor is a contraction (cond(A) well under ~1e7; the polish
-    Jacobi-scales its KKT first, and its f64 certification step rejects
-    any lane where refinement failed — so a too-ill-conditioned lane
-    degrades to a fallback, never to a wrong answer).
-    """
-    lu, piv = jax.scipy.linalg.lu_factor(A.astype(jnp.float32))
-    return lu, piv, A
-
-
-def mixed_lu_solve(fac, b, passes: int = 3):
-    """Solve A x = b in f64 accuracy from an f32 factorization."""
-    lu, piv, A = fac
-    x = jax.scipy.linalg.lu_solve(
-        (lu, piv), b.astype(jnp.float32)[..., None])[..., 0].astype(b.dtype)
-    for _ in range(passes):
-        r = b - jnp.einsum("bij,bj->bi", A, x)               # f64 residual
-        dx = jax.scipy.linalg.lu_solve(
-            (lu, piv), r.astype(jnp.float32)[..., None])[..., 0]
-        x = x + dx.astype(b.dtype)
-    return x
-
-
 def plu_factor(A):
-    """Backend-dispatching batched LU factor; see module docstring."""
-    if _use_lapack():
-        return jax.scipy.linalg.lu_factor(A)
-    return mixed_lu_factor(A)
+    """Batched LU with partial pivoting: A [B, n, n] -> (lu, piv)."""
+    return jax.scipy.linalg.lu_factor(A)
 
 
 def plu_solve(fac, b):
-    """Solve with a ``plu_factor`` result; b [B, n]."""
-    if _use_lapack():
-        return jax.scipy.linalg.lu_solve(fac, b[..., None])[..., 0]
-    return mixed_lu_solve(fac, b)
+    """Solve with a ``plu_factor`` result; b [B, n] -> x [B, n]."""
+    return jax.scipy.linalg.lu_solve(fac, b[..., None])[..., 0]
 
 
 def spd_solve(M, b, jitter: float = 0.0):
-    """Batched SPD solve via Cholesky (supported in f64 on TPU).
+    """Batched SPD solve via Cholesky.
 
     M [B, k, k] symmetric positive (semi)definite, b [B, k].
     """
@@ -146,57 +34,3 @@ def spd_solve(M, b, jitter: float = 0.0):
         M = M + jitter * jnp.eye(M.shape[-1], dtype=M.dtype)
     L = jnp.linalg.cholesky(M)
     return jax.scipy.linalg.cho_solve((L, True), b[..., None])[..., 0]
-
-
-def chol_factor_jax(H):
-    """Batched Cholesky from f64-supported primitives only (no custom
-    call): right-looking rank-1 downdates under ``lax.fori_loop``.
-
-    Why: XLA:TPU *accepts* ``f64 Cholesky``/``TriangularSolve`` but
-    lowers them through block-diagonal inversion custom calls whose f64
-    emulation is orders slower than the equivalent mul/add graph — the
-    hybrid IPM's f64 tail measured 97% of the whole certified solve with
-    the custom calls on its [B,~20,~20] systems. This formulation is
-    B·n³/3 fused elementwise flops with no inversion.
-
-    NaN semantics match ``jnp.linalg.cholesky``: a non-SPD lane produces
-    NaN (sqrt of a negative pivot) that propagates through its factor —
-    callers' finite-step guards keep working. H [B, n, n] -> lower L.
-    """
-    n = H.shape[-1]
-    ar = jnp.arange(n)
-    L0 = jnp.zeros_like(H)
-
-    def body(j, carry):
-        A, L = carry
-        d = jnp.sqrt(A[:, j, j])                       # NaN if non-SPD
-        col = jnp.where((ar >= j)[None, :], A[:, :, j] / d[:, None], 0.0)
-        L = L.at[:, :, j].set(col)
-        A = A - col[:, :, None] * col[:, None, :]
-        return A, L
-
-    _, L = jax.lax.fori_loop(0, n, body, (H, L0))
-    return L
-
-
-def chol_solve_jax(L, b):
-    """Solve (L Lᵀ) x = b with a ``chol_factor_jax`` factor. b [B, n]."""
-    n = L.shape[-1]
-    ar = jnp.arange(n)
-
-    def fwd(j, x):                                      # L y = b
-        xj = x[:, j] / L[:, j, j]
-        x = x.at[:, j].set(xj)
-        upd = jnp.where((ar > j)[None, :], L[:, :, j], 0.0)
-        return x - upd * xj[:, None]
-
-    x = jax.lax.fori_loop(0, n, fwd, b)
-
-    def bwd(i, x):                                      # Lᵀ x = y
-        j = n - 1 - i
-        xj = x[:, j] / L[:, j, j]
-        x = x.at[:, j].set(xj)
-        upd = jnp.where((ar < j)[None, :], L[:, j, :], 0.0)
-        return x - upd * xj[:, None]
-
-    return jax.lax.fori_loop(0, n, bwd, x)

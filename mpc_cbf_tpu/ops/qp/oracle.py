@@ -3,7 +3,7 @@
 The reference's exact solver is CPLEX (``qpcpp/src/solvers/CPLEX.cpp``),
 which is proprietary and absent here. ``native/qp_oracle.cpp`` is the
 stand-in: a dense Mehrotra predictor-corrector IPM in float64 that solves
-the same box-row QPs to ~1e-9, used to measure the TPU solver's control
+the same box-row QPs to ~1e-9, used to measure the batched solvers' control
 deviation (BASELINE.json target: <1e-3) and as a CPU reference in tests.
 
 The shared library is compiled on first use and cached next to the source.

@@ -1,8 +1,8 @@
 """Mixed-precision active-set polish: f64 exactness on top of the f32 path.
 
 The reference solves every QP exactly with CPLEX's active-set simplex
-(``qpcpp/src/solvers/CPLEX.cpp:35-178``). The TPU production path runs the
-fused f32 Pallas ADMM (ops/qp/pallas_admm.py), whose worst-case control
+(``qpcpp/src/solvers/CPLEX.cpp:35-178``). The f32 structured ADMM
+(ops/qp/structured.py) has a worst-case control
 deviation floors near 1e-1 because f32 cannot RESOLVE THE ACTIVE SET on
 ~4% of binding rows (tests/test_oracle_deviation.py history). A single
 f64 KKT solve against the f32-identified set inherits those
@@ -229,7 +229,7 @@ def _polish_chunk(P, A_s, q, lb_s, ub_s, A_d, lb_d, ub_d, x0, cfg: PolishConfig,
         s = 1.0 / jnp.sqrt(jnp.maximum(jnp.max(jnp.abs(K), axis=2), 1e-12))
         Ks = s[:, :, None] * K * s[:, None, :]
         rs = s * rhs
-        fac = plu_factor(Ks)   # TPU-safe f64 LU (ops/qp/linsolve.py)
+        fac = plu_factor(Ks)
         sols = plu_solve(fac, rs)
         resid = rs - jnp.einsum("bij,bj->bi", Ks, sols)
         sols = sols + plu_solve(fac, resid)
@@ -329,7 +329,7 @@ def _polish_chunk(P, A_s, q, lb_s, ub_s, A_d, lb_d, ub_d, x0, cfg: PolishConfig,
     Gp = G * pin[:, :, None].astype(f64)
     GG = jnp.einsum("bpj,bqj->bpq", Gp, Gp)
     gy = -jnp.einsum("bpj,bj->bp", Gp, r0)
-    # GG is SPD(+jitter): Cholesky — the TPU backend has no f64 LU
+    # GG is SPD(+jitter): Cholesky
     y_ls = spd_solve(GG, gy, jitter=1e-12)
     stat_vec = r0 + jnp.einsum("bpj,bp->bj", Gp, y_ls)
     stat = jnp.max(jnp.abs(stat_vec), axis=1) / qscale

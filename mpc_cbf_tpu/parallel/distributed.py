@@ -1,17 +1,15 @@
-"""Multi-host runtime helpers (SURVEY §5.8 — absent in the reference).
+"""Multi-process runtime helpers (SURVEY §5.8 — absent in the reference).
 
-The scaling recipe: the scenario axis is embarrassingly parallel and
-shards across hosts over DCN; the agent axis (and the QP batch inside a
-control step) shards across a host's chips over ICI. One global mesh
-{scenario=total_chips/agent_dim, agent=agent_dim}; collectives stay on
-ICI because every cross-agent reduction (neighbor gathers, lambda2
-assembly) happens inside a scenario shard.
+The scaling recipe: one global mesh {scenario=total_devices/agent_dim,
+agent=agent_dim}, scenario-major. The scenario axis is embarrassingly
+parallel and may span processes and hosts; every cross-agent reduction
+(neighbor gathers, lambda2 assembly) happens inside one scenario shard,
+so collectives stay within the devices that share an agent group.
 
-Usage on each host of a pod slice:
-    init_distributed()                       # env-driven (GKE/TPU VM) or
-    init_distributed(coordinator, n, id)     # explicit
-    mesh = global_mesh(agent=2)
-    # host-local scenario data -> global array:
+Usage in each process:
+    init_distributed(coordinator, n, id)     # e.g. "localhost:<port>"
+    mesh = global_mesh(agent=1)
+    # process-local scenario data -> global array:
     batch = host_scenarios_to_global(mesh, local_init)
 """
 
@@ -29,9 +27,9 @@ from mpc_cbf_tpu.parallel.mesh import SCENARIO_AXIS, AGENT_AXIS
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """jax.distributed.initialize with env-var autodetection (TPU VMs
-    populate the cluster env; explicit args for manual launches). Safe to
-    call when already initialized or single-process."""
+    """jax.distributed.initialize. Pass the coordinator address, process
+    count and id explicitly unless the cluster environment provides them.
+    Safe to call when already initialized or single-process."""
     try:
         if coordinator_address is None:
             jax.distributed.initialize()
@@ -45,9 +43,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 
 def global_mesh(agent: int = 1) -> Mesh:
-    """Mesh over ALL devices (every host's chips): scenario-major so the
-    per-host device groups land on the scenario axis (DCN-friendly) and
-    the agent axis stays within a host (ICI-only collectives)."""
+    """Mesh over ALL devices (every process's cards), scenario-major: each
+    process's devices land on the scenario axis, which needs no
+    collectives, and an agent group stays within one process."""
     devs = np.asarray(jax.devices())
     if devs.size % agent:
         raise ValueError(f"{devs.size} devices not divisible by agent={agent}")

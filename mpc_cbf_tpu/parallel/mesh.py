@@ -5,10 +5,14 @@ launching independent processes (``experiments/bash/ScaleScript.sh:16-35``).
 Here scale is a first-class sharded axis pair:
 
 - ``scenario`` (data axis): embarrassingly parallel Monte-Carlo / sweep
-  instances. Shards across chips and hosts (DCN-friendly).
+  instances. Scenarios never talk to each other, so this axis needs no
+  collective at all and can span cards and hosts.
 - ``agent`` (model axis): robots within one scenario. Inter-agent coupling
-  (neighbor states, Laplacian assembly) rides ICI collectives inside
-  shard_map.
+  (neighbor states, Laplacian assembly) needs collectives along it.
+
+The cards of one host are joined all to all (NVLink), so the mesh shape
+follows the algorithm alone: put every card on the scenario axis unless
+one scenario is too large for a card.
 """
 
 from __future__ import annotations

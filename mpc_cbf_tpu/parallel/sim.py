@@ -81,12 +81,12 @@ class MultiAgentSim:
     noise_vel_std: float = 0.0
     fov_cov_diag: float = 0.01
     #: route the agent batch through the structure-exploiting solver
-    #: (one fused Pallas ADMM launch for all agents) instead of vmapping
+    #: (one batched solve for all agents) instead of vmapping
     #: the dense per-agent solver
     structured: bool = False
     #: solver configuration for the structured path: a StructuredConfig
-    #: (fused f32 ADMM), IPMConfig (Mehrotra IPM — IPM_F32_ENTRY is the
-    #: round-5 fov production profile: interior iterates are feasible by
+    #: (f32 ADMM), IPMConfig (Mehrotra IPM — IPM_F32_ENTRY is the fov
+    #: production profile: interior iterates are feasible by
     #: construction, usable rate 0.99 vs ADMM's 0.69), or HybridIPMConfig
     #: (certified). None = StructuredConfig(iters=controller.solver.iters).
     solver_cfg: object = None
@@ -324,7 +324,7 @@ def sharded_rollout(sim: MultiAgentSim, mesh: Mesh, init: State, goals: Array,
                     num_steps: int, keys: Optional[Array] = None) -> SimResult:
     """Scenario-sharded rollout: leading axis S of init/goals is sharded
     over the mesh's scenario axis; each scenario is an independent closed
-    loop (near-linear scaling — the TPU replacement for ScaleScript.sh).
+    loop (near-linear scaling — the batched replacement for ScaleScript.sh).
 
     init: State with [S, A, dim] leaves; goals [S, A, dim].
     """

@@ -1,10 +1,9 @@
 """Compile-and-run smoke test of the EXACT bench.py entry paths.
 
-Round 2 shipped a bench default (fov flagship, m_d=84) that had never been
-executed and crashed at compile time on hardware (BENCH_r02.json rc=1,
-VMEM OOM in an in-loop cho_solve). This test compiles and runs every bench
-mode at tiny batch on the CPU mesh so that class of regression can never
-ship silently again — if bench.build() stops compiling, CI goes red.
+A bench default that has never been executed can crash at compile time
+on the accelerator. This test compiles and runs every bench mode at tiny
+batch on the CPU mesh so that class of regression cannot ship silently —
+if bench.build() stops compiling, CI goes red.
 """
 import sys
 from pathlib import Path
@@ -27,11 +26,10 @@ def _run(mode, batch=8, accuracy=""):
 
 
 def test_bench_fov_path_compiles_and_runs():
-    # the round-5 raw production path (f32 Mehrotra IPM): interior
-    # iterates are feasible by construction. Bar derived from the SAME
-    # sampling distribution bench.py uses (seed 0): the hardware
-    # ensemble measures pri<USABLE_PRI_EPS on 0.993 of 2048 lanes
-    # (scripts/calibrate_tail.py, round 5); a 64-lane slice at >= 0.92
+    # the raw production path (f32 Mehrotra IPM): interior iterates are
+    # feasible by construction. Bar derived from the SAME sampling
+    # distribution bench.py uses (seed 0): the H100 measures 0.9974
+    # usable on all 8192 lanes (PERF.md); a 64-lane slice at >= 0.92
     # (>= 59/64) trips on any real regression of that rate while
     # tolerating ~2-sigma sampling noise.
     success, certified = _run("fov", batch=64)
@@ -41,7 +39,7 @@ def test_bench_fov_path_compiles_and_runs():
 
 
 def test_bench_fov_admm_path_compiles_and_runs(monkeypatch):
-    # the fused-ADMM path stays available behind BENCH_SOLVER=admm
+    # the structured-ADMM path stays available behind BENCH_SOLVER=admm
     monkeypatch.setenv("BENCH_SOLVER", "admm")
     success, certified = _run("fov")
     assert success.mean() >= 0.75
@@ -72,7 +70,7 @@ def test_bench_fov_ipm_path_compiles_and_runs():
 def test_bench_fov_certified_path_compiles_and_runs():
     # the shipping certified pipeline (HYBRID_PROD): f32-only iter 0 +
     # hybrid iter 1; flown curves carry the certificate at the
-    # calibrated-bar rate (0.949 on the 2048-lane hardware ensemble —
+    # calibrated-bar rate (0.988 of 8192 lanes on the H100, PERF.md —
     # a small slice must still certify most lanes)
     success, certified = _run("fov", batch=16, accuracy="certified")
     assert success.mean() >= 0.9
@@ -87,8 +85,8 @@ def test_bench_connectivity_ipm_path_compiles_and_runs():
 
 def test_bench_connectivity_certified_path_compiles_and_runs():
     # the certified pipeline generalizes across variants: on the cheap
-    # connectivity family it certifies ~1.0 (0.9999 on the 32,768-lane
-    # hardware ensemble, BENCH.md round 5)
+    # connectivity family it certifies ~1.0 (0.99994 of 32,768 lanes on
+    # the H100, PERF.md)
     success, certified = _run("connectivity", batch=16, accuracy="certified")
     assert success.mean() == 1.0
     assert certified.mean() >= 0.9

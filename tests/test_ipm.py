@@ -11,6 +11,7 @@ for the reference's CPLEX (``qpcpp/src/solvers/CPLEX.cpp:35-178``).
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from mpc_cbf_tpu.ops.qp.ipm import IPMConfig, StructuredIPM
 from mpc_cbf_tpu.ops.qp.oracle import solve_oracle_batch
@@ -216,132 +217,23 @@ def test_hybrid_ipm_through_structured_impc():
     assert np.isfinite(np.asarray(res.coeffs)).all()
 
 
-def test_hand_chol_path_matches_custom_call_path():
-    """IPMConfig(hand_chol=True) routes the KKT factorization through the
-    fori_loop Cholesky (ops/qp/linsolve.py::chol_factor_jax) — the f64
-    path every non-CPU backend takes, where the Cholesky/TriangularSolve
-    custom calls measured 97% of the certified solve. The two
-    factorizations must produce the same certified solutions."""
-    import dataclasses
-
-    B = 16
-    ctrl, op, qp, _ = _fov_flagship_qps(B, seed=5)
-    x_ref = _oracle(qp)
-    (P, A_s, eq_mask), args = _split_structured(ctrl, qp)
-    args = tuple(jnp.asarray(a) for a in args)
-
-    lap = StructuredIPM(P, A_s, eq_mask, ctrl.m_dynamic,
-                        IPMConfig(hand_chol=False))
-    hand = StructuredIPM(P, A_s, eq_mask, ctrl.m_dynamic,
-                         IPMConfig(hand_chol=True))
-    s_l = lap.solve(*args)
-    s_h = hand.solve(*args)
-    assert bool(np.all(np.asarray(s_h.converged)))
-    assert (np.asarray(s_h.converged) == np.asarray(s_l.converged)).all()
-    U = np.asarray(op.U_basis)
-    for sol in (s_l, s_h):
-        dev = np.abs((np.asarray(sol.z)[:, :36] - x_ref[:, :36]) @ U.T).max(1)
-        assert dev.max() < 1e-3, dev.max()
-    # the factorizations agree to f64 rounding per solve, but 30
-    # iterations amplify rounding-order differences along the flat slack
-    # coordinates (measured: <1e-4 absolute on ~5% of entries) — both
-    # endpoints certify against the oracle above, so a loose band here
-    np.testing.assert_allclose(np.asarray(s_h.z), np.asarray(s_l.z),
-                               atol=1e-3)
-
-
-def test_hand_chol_f32_entry_matches_custom_call_path():
-    """The raw production path (f32 Mehrotra IPM) uses the fori_loop
-    Cholesky on TPU-like backends too — the custom calls measured ~90%
-    of the f32 solve as well (427 -> 65 ms at batch 8192, round 5,
-    scripts/profile_ipm_parts.py). Both factorizations must deliver the
-    same usable-lane set and matching iterates at the f32 floor."""
-    import dataclasses
-
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+def test_ipm_program_does_not_depend_on_backend(backend, monkeypatch):
+    """No platform rule: the IPM traces the same program (library
+    Cholesky, native-precision Gram) whatever jax.default_backend()
+    reports, for the f64 and the f32 profiles."""
     from mpc_cbf_tpu.ops.qp.ipm import IPM_F32_ENTRY
 
-    B = 32
-    ctrl, op, qp, _ = _fov_flagship_qps(B, seed=7)
-    (P, A_s, eq_mask), args = _split_structured(ctrl, qp)
-    args = tuple(jnp.asarray(a, jnp.float32) for a in args)
-
-    lap = StructuredIPM(P, A_s, eq_mask, ctrl.m_dynamic,
-                        dataclasses.replace(IPM_F32_ENTRY, hand_chol=False))
-    hand = StructuredIPM(P, A_s, eq_mask, ctrl.m_dynamic,
-                         dataclasses.replace(IPM_F32_ENTRY, hand_chol=True))
-    s_l = lap.solve(*args)
-    s_h = hand.solve(*args)
-    eps = ctrl.USABLE_PRI_EPS
-    u_l = np.asarray(s_l.pri_res) < eps
-    u_h = np.asarray(s_h.pri_res) < eps
-    assert u_h.mean() >= u_l.mean() - 1e-9
-    assert u_h.mean() >= 0.9
-    # Iterates agree only loosely: both stop at the f32 complementarity
-    # floor, where near-flat slack-decayed faces admit ~0.2-0.4 spread
-    # between equally-feasible near-optima under different rounding
-    # orders (measured 0.33 on this ensemble). Feasibility — the raw
-    # path's contract — is asserted above; this band only guards against
-    # a gross divergence between the two factorizations.
-    both = u_l & u_h
-    diff = np.abs(np.asarray(s_h.z)[both, :36]
-                  - np.asarray(s_l.z)[both, :36]).max()
-    assert diff < 1.0, diff
-
-
-def test_df32_hform_matches_native_f64():
-    """The double-f32 H formation (ipm.df32_gram — the TPU path where
-    f64 einsums are emulated at ~1% of VPU) must certify the same lanes
-    as the native-f64 formation. Accuracy of the raw contraction is
-    pinned in EAGER mode across the full 1e-6..1e12 weight range of a
-    late-tail D: eager matches the TPU-jit lowering bit-for-bit
-    (8.6e-14 vs numpy f64, measured round 5). XLA:CPU's *jit* pipeline
-    degrades the compensated scheme (~1.4e-8, vectorizer reorders the
-    error-free transforms despite optimization barriers) — which is why
-    the auto-gate keeps native f64 einsums on CPU; the end-to-end check
-    below therefore bounds, rather than equates, the CPU-jit behavior,
-    whose failure mode is SAFE (certification rests on the true-f64
-    residual checks; a degraded H only lowers acceptance)."""
-    from mpc_cbf_tpu.ops.qp.ipm import df32_gram
-
-    # direct accuracy check on the raw contraction (eager == TPU-jit)
-    rng = np.random.default_rng(3)
-    Bx, mx, nzx = 64, 187, 19
-    G = jnp.asarray(rng.normal(size=(Bx, mx, nzx)))
-    W = jnp.asarray(10.0 ** rng.uniform(-6, 12, size=(Bx, mx)))
-    H_ref = jnp.einsum("bmi,bm,bmj->bij", G, W, G,
-                       preferred_element_type=jnp.float64)
-    scale = jnp.max(jnp.abs(H_ref), axis=(1, 2), keepdims=True)
-    with jax.disable_jit():
-        H_new = df32_gram(G, W)
-    rel = float(jnp.max(jnp.abs(H_new - H_ref) / scale))
-    assert rel < 1e-11, rel
-    # CPU-jit bound: degraded but still ~1e-8-accurate H
-    H_jit = jax.jit(df32_gram)(G, W)
-    rel_jit = float(jnp.max(jnp.abs(H_jit - H_ref) / scale))
-    assert rel_jit < 1e-6, rel_jit
-
-    # end-to-end under CPU jit: the df32 path must never certify MORE
-    # than native f64 certifies incorrectly — co-converged lanes agree
-    B = 16
-    ctrl, op, qp, _ = _fov_flagship_qps(B, seed=9)
+    ctrl, op, qp, _ = _fov_flagship_qps(4)
     (P, A_s, eq_mask), args = _split_structured(ctrl, qp)
     args = tuple(jnp.asarray(a) for a in args)
-    nat = StructuredIPM(P, A_s, eq_mask, ctrl.m_dynamic,
-                        IPMConfig(df32_hform=False))
-    dfi = StructuredIPM(P, A_s, eq_mask, ctrl.m_dynamic,
-                        IPMConfig(df32_hform=True))
-    s_n = nat.solve(*args)
-    s_d = dfi.solve(*args)
-    conv_n = np.asarray(s_n.converged)
-    conv_d = np.asarray(s_d.converged)
-    # CPU-jit's ~1e-8 H error against the cond~1e8 KKT halves acceptance
-    # (measured 0.44 vs native 1.0 on this ensemble) — the SAFE direction.
-    # On TPU (exact lowering) acceptance parity is covered by the bench
-    # hardware runs (BENCH.md round 5).
-    assert conv_d.mean() >= 0.25, conv_d.mean()
-    both = conv_n & conv_d
-    # each converged solution is within the 1e-3-class certificate of the
-    # optimum, so two independent solvers may sit ~2e-3 apart on a flat
-    # face (measured max 7.3e-4 here)
-    np.testing.assert_allclose(np.asarray(s_d.z)[both],
-                               np.asarray(s_n.z)[both], atol=2e-3)
+    for cfg in (IPMConfig(), IPM_F32_ENTRY):
+        ipm = StructuredIPM(P, A_s, eq_mask, ctrl.m_dynamic, cfg)
+        # the untraced body, so no jit cache can hide a backend rule
+        a = tuple(x.astype(ipm.dt) for x in args)
+        ref = str(jax.make_jaxpr(ipm._solve)(*a, None))
+        monkeypatch.setattr(jax, "default_backend", lambda: backend)
+        got = str(jax.make_jaxpr(ipm._solve)(*a, None))
+        monkeypatch.undo()
+        assert got == ref
+        assert "cholesky" in got

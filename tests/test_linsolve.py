@@ -1,9 +1,9 @@
-"""Portable batched LU (ops/qp/linsolve.py) vs LAPACK on CPU.
+"""Batched f64 LU (ops/qp/linsolve.py) on the polish's KKT shapes.
 
-The TPU backend rejects f64 LuDecomposition, so the polish KKT solves
-run the hand-rolled ``_plu_factor_jax``/``_plu_solve_jax`` there. These
-tests certify the portable path against LAPACK on ill-conditioned,
-polish-shaped systems so the TPU swap cannot silently change numerics.
+``plu_factor``/``plu_solve`` are what the active-set polish solves its
+Jacobi-scaled working-set KKT systems with (ops/qp/polish.py). The cases
+below are those shapes: symmetric quasi-definite with a wide diagonal
+span, a permuted one that needs row pivoting, and a near-singular one.
 """
 
 import jax
@@ -11,10 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpc_cbf_tpu.ops.qp.linsolve import (
-    _plu_factor_jax, _plu_solve_jax, mixed_lu_factor, mixed_lu_solve,
-    plu_factor, plu_solve, spd_solve,
-)
+from mpc_cbf_tpu.ops.qp.linsolve import plu_factor, plu_solve, spd_solve
 
 pytestmark = pytest.mark.usefixtures("x64")
 
@@ -29,108 +26,52 @@ def x64():
 
 def _random_kkt_like(rng, B, n, span=8.0):
     """Symmetric quasi-definite batch with a wide diagonal span, like the
-    polish KKT after Jacobi scaling (polish.py builds exactly this shape)."""
+    polish KKT (polish.py builds exactly this shape)."""
     Q = rng.normal(size=(B, n, n))
     A = (Q + np.swapaxes(Q, 1, 2)) / 2
     d = 10.0 ** rng.uniform(-span / 2, span / 2, size=(B, n))
-    A = A + np.apply_along_axis(np.diag, 1, d * np.sign(rng.normal(size=(B, n))))
-    return jnp.asarray(A, jnp.float64)
+    return A + np.apply_along_axis(np.diag, 1, d * np.sign(rng.normal(size=(B, n))))
 
 
-def test_plu_matches_lapack_random():
-    rng = np.random.default_rng(0)
-    A = _random_kkt_like(rng, 16, 37)
-    b = jnp.asarray(rng.normal(size=(16, 37)), jnp.float64)
-    x_ref = jax.scipy.linalg.lu_solve(
-        jax.scipy.linalg.lu_factor(A), b[..., None])[..., 0]
-    x = _plu_solve_jax(*_plu_factor_jax(A), b)
-    resid = jnp.einsum("bij,bj->bi", A, x) - b
-    resid_ref = jnp.einsum("bij,bj->bi", A, x_ref) - b
-    # same backward-error class as LAPACK (partial pivoting both)
-    assert float(jnp.max(jnp.abs(resid))) <= \
-        10 * float(jnp.max(jnp.abs(resid_ref))) + 1e-10
-    np.testing.assert_allclose(np.asarray(x), np.asarray(x_ref),
-                               rtol=1e-6, atol=1e-8)
+def _jacobi(A):
+    s = 1.0 / np.sqrt(np.maximum(np.abs(A).max(axis=2), 1e-12))
+    return s[:, :, None] * A * s[:, None, :]
 
 
-def test_plu_reconstructs_permuted_matrix():
-    rng = np.random.default_rng(1)
-    A = _random_kkt_like(rng, 4, 12, span=4.0)
-    LU, perm = _plu_factor_jax(A)
-    n = A.shape[-1]
-    L = jnp.tril(LU, -1) + jnp.eye(n)
-    U = jnp.triu(LU)
-    PA = jnp.take_along_axis(A, perm[:, :, None], axis=1)
-    np.testing.assert_allclose(np.asarray(L @ U), np.asarray(PA),
-                               rtol=1e-10, atol=1e-10)
+def _case(name):
+    rng = np.random.default_rng({"random": 0, "permuted": 1, "near_singular": 2}[name])
+    if name == "random":
+        # the polish's KKT width for the fov flagship: n = 43 plus a
+        # 24-row pool beyond the equality rows
+        return _jacobi(_random_kkt_like(rng, 16, 67, span=6.0))
+    if name == "permuted":
+        # rows shuffled off the dominant diagonal: pivoting must find them
+        A = _random_kkt_like(rng, 4, 12, span=4.0)
+        perm = rng.permutation(12)
+        return _jacobi(A[:, perm])
+    # one pivot many orders below the rest: the dual-regularized pinned
+    # rows (PolishConfig.delta = 1e-13) put exactly such a pivot in K
+    noise = 1e-3 * _random_kkt_like(rng, 2, 9, span=0.0)
+    noise[:, 4, :] = noise[:, :, 4] = 0.0
+    A = np.tile(np.eye(9), (2, 1, 1)) + noise
+    A[:, 4, 4] = 1e-13
+    return A
 
 
-def test_plu_singularish_pivot_guard():
-    # a numerically singular lane must produce finite output (the polish
-    # rejects runaway lanes itself; the factorization must not NaN)
-    A = jnp.zeros((1, 5, 5), jnp.float64).at[0].set(jnp.eye(5))
-    A = A.at[0, 2, 2].set(0.0)
-    x = _plu_solve_jax(*_plu_factor_jax(A), jnp.ones((1, 5), jnp.float64))
-    assert bool(jnp.all(jnp.isfinite(x)))
-
-
-def test_dispatch_is_lapack_on_cpu():
-    rng = np.random.default_rng(2)
-    A = _random_kkt_like(rng, 2, 9, span=2.0)
-    b = jnp.asarray(rng.normal(size=(2, 9)), jnp.float64)
+@pytest.mark.parametrize("name", ["random", "permuted", "near_singular"])
+def test_plu_solves_polish_kkt_shapes(name):
+    A = jnp.asarray(_case(name), jnp.float64)
+    B, n, _ = A.shape
+    b = jnp.asarray(np.random.default_rng(5).normal(size=(B, n)), jnp.float64)
     x = plu_solve(plu_factor(A), b)
-    resid = jnp.einsum("bij,bj->bi", A, x) - b
-    assert float(jnp.max(jnp.abs(resid))) < 1e-9
-
-
-def test_mixed_lu_refines_to_f64_accuracy():
-    """f32 factor + f64 iterative refinement must land at f64-class
-    backward error on Jacobi-scaled KKT-like systems (the TPU polish
-    path, where f64 LU is unsupported but f32 LU is a fast custom call)."""
-    rng = np.random.default_rng(7)
-    A = _random_kkt_like(rng, 16, 37, span=6.0)
-    # Jacobi scale as the polish does before solving
-    s = 1.0 / jnp.sqrt(jnp.maximum(jnp.max(jnp.abs(A), axis=2), 1e-12))
-    As = s[:, :, None] * A * s[:, None, :]
-    b = jnp.asarray(rng.normal(size=(16, 37)), jnp.float64)
-    x = mixed_lu_solve(mixed_lu_factor(As), b)
-    resid = jnp.einsum("bij,bj->bi", As, x) - b
-    rel = float(jnp.max(jnp.abs(resid))) / float(jnp.max(jnp.abs(b)))
-    assert rel < 1e-12, f"mixed-precision refinement stalled: rel={rel}"
-
-
-def test_polish_certifies_with_mixed_solver(monkeypatch):
-    """Full polish with the TPU mixed-precision solver forced on: the
-    connectivity flagship batch must still certify to < 1e-3 vs the
-    exact oracle (this is what runs on the TPU, where _use_lapack()
-    is False)."""
-    import mpc_cbf_tpu.ops.qp.linsolve as linsolve
-    from mpc_cbf_tpu.ops.qp.polish import polish_dense
-    from mpc_cbf_tpu.ops.qp.oracle import solve_oracle_batch
-    from mpc_cbf_tpu.ops.qp import ADMMConfig, solve_batch
-    import sys
-    sys.path.insert(0, "/root/repo/tests")
-    from test_oracle_deviation import _flagship_qps
-
-    monkeypatch.setattr(linsolve, "_use_lapack", lambda: False)
-    jax.clear_caches()   # drop LAPACK-path executables traced earlier
-    try:
-        B = 8
-        ctrl, op, qp, _ = _flagship_qps(B, seed=11)
-        x_ref, status = solve_oracle_batch(*(np.asarray(v) for v in
-                                             (qp.P, qp.q, qp.A, qp.lb, qp.ub)))
-        assert (status == 0).all()
-        qp32 = jax.tree.map(lambda a: a.astype(jnp.float32), qp)
-        sol = solve_batch(qp32, ADMMConfig(iters=200))
-        res = polish_dense(qp32, sol.z)
-        assert bool(np.all(np.asarray(res.ok))), \
-            f"mixed-solver polish failed to certify: ok={np.asarray(res.ok)}"
-        U = np.asarray(op.U_basis)
-        dev = np.abs(np.asarray(res.z[:, :36], np.float64) @ U.T
-                     - x_ref[:, :36] @ U.T).max()
-        assert dev < 1e-3, f"mixed-solver polished deviation: {dev}"
-    finally:
-        jax.clear_caches()
+    assert x.dtype == jnp.float64 and x.shape == (B, n)
+    assert bool(jnp.all(jnp.isfinite(x)))
+    # backward error at f64 rounding, scaled by the system's size
+    resid = np.asarray(jnp.einsum("bij,bj->bi", A, x) - b)
+    scale = np.abs(np.asarray(A)).max(axis=(1, 2)) * np.abs(np.asarray(x)).max(axis=1)
+    assert (np.abs(resid).max(axis=1) / np.maximum(scale, 1.0)).max() < 1e-12
+    np.testing.assert_allclose(np.asarray(x), np.linalg.solve(np.asarray(A), np.asarray(b)[..., None])[..., 0],
+                               rtol=1e-6, atol=1e-8)
 
 
 def test_spd_solve_matches_direct():

@@ -118,7 +118,7 @@ def test_admm_control_deviation_vs_oracle():
     x_ref, status = solve_oracle_batch(*(np.asarray(v) for v in
                                          (qp.P, qp.q, qp.A, qp.lb, qp.ub)))
     assert (status == 0).all(), status
-    # TPU-path solver (f64 here under conftest; same code runs f32 on chip)
+    # batched solver (f64 here under conftest; the same code runs f32 on the GPU)
     sol = solve_batch(qp, ADMMConfig(iters=400))
     # controls actually flown: sampled accelerations over the horizon
     U = np.asarray(op.U_basis)

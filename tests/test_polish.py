@@ -2,8 +2,8 @@
 
 BASELINE.json accuracy bar: max control deviation < 1e-3 vs the exact
 solver. The reference meets it by solving every QP exactly with CPLEX
-(``qpcpp/src/solvers/CPLEX.cpp:35-178``). The TPU production path meets it
-with the fused f32 Pallas ADMM followed by the f64 active-set polish
+(``qpcpp/src/solvers/CPLEX.cpp:35-178``). The polish path meets it with
+the f32 structured ADMM followed by the f64 active-set polish
 (ops/qp/polish.py) — f32 identifies the active set to within a handful of
 rows, and a few exact f64 KKT solves with working-set updates finish the
 job. These tests enter in FLOAT32 (the production dtype) and assert the

@@ -130,9 +130,9 @@ def test_structured_warm_start_consistency():
 
 def test_lane_chunked_solve_matches_unchunked():
     """StructuredConfig.lane_chunk maps the WHOLE solve over lane slices
-    (the Woodbury precompute holds ~3 [m_d, m_d] tensors per lane in HBM;
-    a 32768-lane 32-agent fov batch is 3 x 18.9 GB and fails AOT compile
-    on a 16 GB v5e). Chunked and unchunked paths must agree exactly."""
+    (the Woodbury precompute holds ~3 [m_d, m_d] tensors per lane in
+    device memory; a 32768-lane 32-agent fov batch is 3 x 18.9 GB).
+    Chunked and unchunked paths must agree exactly."""
     B, N = 8, 3
     op = BezierMPCOperator(BezierParams(), MPC, dim=3)
     cbf = FovCBF(FOV120, 1.0, 8.0, MPC.v_min, MPC.v_max)

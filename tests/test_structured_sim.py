@@ -1,4 +1,4 @@
-"""Structured (fused-Pallas-path) MultiAgentSim vs the dense path."""
+"""Structured (batched-solver) MultiAgentSim vs the dense path."""
 import numpy as np
 import jax
 import jax.numpy as jnp

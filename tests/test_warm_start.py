@@ -8,7 +8,7 @@ carries duals across replan steps and h-shifts the primal warm start.
 
 The reference cold-starts CPLEX every solve (a fresh IloCplex model per
 call, ``qpcpp/src/solvers/CPLEX.cpp:35-178``) — warm-starting across the
-IMPC/replan structure is TPU-rebuild-only capability.
+IMPC/replan structure is a capability of this rebuild only.
 """
 import numpy as np
 import jax
